@@ -11,7 +11,7 @@ statistics, mimicking what is known about LLM hidden states:
   - aggregate value distributions are zero-mean unimodal (h1 ~ Gaussian-
     like, h2 ~ Laplacian-like; reference notebooks/distributions.ipynb,
     reproduced from the real shipped histograms by
-    `teal_tpu/calibration/analysis.py`);
+    `teal_jax/calibration/analysis.py`);
   - per-channel magnitudes are strongly heterogeneous (massive-activation
     channels). Channel scale sigma_c ~ lognormal(0, s); s sweeps from 0
     (homogeneous) to 1.2 (heavy heterogeneity).

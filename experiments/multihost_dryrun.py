@@ -11,9 +11,6 @@ whose collectives cross the process boundary (DCN-analog).
 Legs (--leg, each a fresh 2-process run; VERDICT r4 #7):
   gspmd     — GSPMD decode step on a dp=2 x tp=4 mesh (all-reduce
               crosses processes through the dp axis placement)
-  kernel-tp — tp=8 kernel-path decode (shard_map + Pallas gather
-              kernels in interpret mode; the per-layer psums ride the
-              cross-process axis)
   pp        — pp=2 x tp=4 GPipe prefill: the stage boundary IS the
               process boundary, hidden states ppermute across it
   serving   — ContinuousBatchingEngine on a tp=8 global mesh: both
@@ -34,7 +31,7 @@ sys.path.insert(0, REPO)
 
 N_PROC = 2
 LOCAL_DEVICES = 4
-LEGS = ("gspmd", "kernel-tp", "pp", "serving")
+LEGS = ("gspmd", "pp", "serving")
 BASE_PORT = 9764
 
 
@@ -43,11 +40,11 @@ def _leg_gspmd(pid, mesh_unused):
     import jax
     import jax.numpy as jnp
 
-    from teal_tpu.config import SparsityConfig, get_model_config
-    from teal_tpu.models import llama
-    from teal_tpu.models.llama import KVCache
-    from teal_tpu.parallel import shard_cache, shard_params
-    from teal_tpu.parallel.distributed import global_mesh
+    from teal_jax.config import SparsityConfig, get_model_config
+    from teal_jax.models import llama
+    from teal_jax.models.llama import KVCache
+    from teal_jax.parallel import shard_cache, shard_params
+    from teal_jax.parallel.distributed import global_mesh
 
     cfg = get_model_config("tiny", n_layers=2, n_heads=8, n_kv_heads=8,
                            dim=256, intermediate_size=512, vocab_size=512)
@@ -79,68 +76,15 @@ def _leg_gspmd(pid, mesh_unused):
     assert ok
 
 
-def _leg_kernel_tp(pid, _):
-    import numpy as np
-    import jax
-    import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
-
-    from teal_tpu.config import SparsityConfig, get_model_config
-    from teal_tpu.models import llama
-    from teal_tpu.models.llama import KVCache
-    from teal_tpu.parallel import tp_kernel
-
-    # tp=2 with ONE device per process: every psum hop crosses the
-    # process boundary, which is the thing under test. (tp=8 over all
-    # local devices ran the interpret-mode kernels 4x wider and blew
-    # the 780 s leg budget — interpret Pallas is minutes per trace.)
-    tp = N_PROC
-    cfg = get_model_config("tiny", n_layers=2, n_heads=2, n_kv_heads=2,
-                           dim=256, intermediate_size=256,
-                           vocab_size=128)
-    params = llama.init_params(cfg, jax.random.PRNGKey(7), jnp.float32)
-    sp = SparsityConfig(enabled=True, kernel="block", block_size=128,
-                        block_keep_frac=1.0, block_thresholding=True,
-                        token_fused=False, fused_attn_block=False,
-                        packed_pipeline=False)
-    th = jnp.full((cfg.n_layers, 7), 0.02, jnp.float32)
-    devices = jax.devices()
-    # one device from each process (addressable sets are contiguous)
-    pick = [d for d in devices if d.process_index == 0][:1] + \
-           [d for d in devices if d.process_index == 1][:1]
-    mesh = tp_kernel.make_tp_mesh(tp, devices=pick)
-    sharded = tp_kernel.shard_params(params, mesh, cfg)
-    cache = tp_kernel.shard_cache(KVCache.init(cfg, 1, 16, jnp.float32),
-                                  mesh)
-    tok = jnp.asarray([[5]], jnp.int32)
-    # COMPILE-ONLY across the process boundary: interpret-mode Pallas
-    # EXECUTION does not rendezvous across processes on the CPU backend
-    # (each process can only run its addressable shard's interpreter;
-    # the cross-process psum never meets — observed as a silent hang at
-    # any model size). Compiling the jitted program on both processes
-    # still validates the SPMD partitioning, the per-shard kernel
-    # lowering (interpret), and the collective insertion — the same
-    # philosophy as the driver's dryrun gate. Numerics of the kernel-TP
-    # decode are pinned single-process in tests/test_tp_kernel.py.
-    with pltpu.force_tpu_interpret_mode():
-        fn = jax.jit(lambda p, c, t: tp_kernel.tp_kernel_decode(
-            p, tok, c, 3, t, cfg=cfg, sp=sp, mesh=mesh))
-        exe = fn.lower(sharded, cache, th).compile()
-    shape = exe.output_shardings
-    print(f"[proc {pid}] multihost kernel-tp ok=True tp={tp} "
-          f"(compiled; {len(jax.tree.leaves(shape))} output shardings)",
-          flush=True)
-
-
 def _leg_pp(pid, _):
     import numpy as np
     import jax
     import jax.numpy as jnp
 
-    from teal_tpu.config import SparsityConfig, get_model_config
-    from teal_tpu.models import llama
-    from teal_tpu.models.llama import KVCache
-    from teal_tpu.parallel import pp
+    from teal_jax.config import SparsityConfig, get_model_config
+    from teal_jax.models import llama
+    from teal_jax.models.llama import KVCache
+    from teal_jax.parallel import pp
 
     cfg = get_model_config("tiny", n_layers=2, n_heads=4, n_kv_heads=4,
                            dim=256, intermediate_size=512, vocab_size=128)
@@ -172,11 +116,11 @@ def _leg_serving(pid, _):
     import jax
     import jax.numpy as jnp
 
-    from teal_tpu.config import get_model_config
-    from teal_tpu.engine.serving import ContinuousBatchingEngine
-    from teal_tpu.models import llama
-    from teal_tpu.parallel import tp as tp_mod
-    from teal_tpu.parallel.distributed import global_mesh
+    from teal_jax.config import get_model_config
+    from teal_jax.engine.serving import ContinuousBatchingEngine
+    from teal_jax.models import llama
+    from teal_jax.parallel import tp as tp_mod
+    from teal_jax.parallel.distributed import global_mesh
 
     tp = N_PROC * LOCAL_DEVICES
     cfg = get_model_config("tiny", n_layers=2, n_heads=8, n_kv_heads=8,
@@ -204,8 +148,7 @@ def _leg_serving(pid, _):
     assert ok
 
 
-LEG_FNS = {"gspmd": _leg_gspmd, "kernel-tp": _leg_kernel_tp,
-           "pp": _leg_pp, "serving": _leg_serving}
+LEG_FNS = {"gspmd": _leg_gspmd, "pp": _leg_pp, "serving": _leg_serving}
 
 
 def worker(pid: int, leg: str) -> None:
@@ -215,7 +158,7 @@ def worker(pid: int, leg: str) -> None:
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from teal_tpu.parallel.distributed import initialize_distributed
+    from teal_jax.parallel.distributed import initialize_distributed
 
     port = BASE_PORT + LEGS.index(leg)
     initialize_distributed(coordinator_address=f"127.0.0.1:{port}",

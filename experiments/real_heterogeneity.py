@@ -13,7 +13,7 @@ for every layer of 6 models (`/root/reference/models/<M>/histograms`).
 Identification: if x[p,c] = sigma_c * eps[p,c] with ln sigma_c ~ N(mu,
 s^2) and eps unit Gaussian (h1) / unit Laplace (h2) — the per-profile
 shapes the reference's own notebook fits (`notebooks/distributions.ipynb`,
-reproduced by `teal_tpu/calibration/analysis.py`) — then the POOLED value
+reproduced by `teal_jax/calibration/analysis.py`) — then the POOLED value
 distribution is a scale mixture whose |x|-quantile RATIOS depend only on
 s (mu and any global scale cancel). We measure
     R = Q_|x|(0.97) / Q_|x|(0.50)
@@ -43,8 +43,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from teal_tpu.config import PROJS, PROJ_GROUP, get_model_config
-from teal_tpu.ops.distribution import Distribution, load_histograms
+from teal_jax.config import PROJS, PROJ_GROUP, get_model_config
+from teal_jax.ops.distribution import Distribution, load_histograms
 
 REF_MODELS = {
     # reference artifact dir -> registry config name
@@ -331,7 +331,7 @@ def main():
          "| ratio | achieved s (target from schedule) | overflow rows |")
     emit("|---|---|---|---|---|---|---|")
 
-    from teal_tpu.calibration.thresholds import (
+    from teal_jax.calibration.thresholds import (
         get_layer_greedy_sparsities, proj_group_size)
 
     rng = np.random.default_rng(args.seed)

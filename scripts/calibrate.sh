@@ -7,4 +7,4 @@ OUT=${2:?}
 CKPT=${3:-}
 ARGS=(--model "$MODEL" --output-path "$OUT" --batch 10 --seq-len 2048)
 if [[ -n "$CKPT" ]]; then ARGS+=(--checkpoint "$CKPT"); else ARGS+=(--random-init); fi
-python -m teal_tpu.cli calibrate "${ARGS[@]}"
+python -m teal_jax.cli calibrate "${ARGS[@]}"

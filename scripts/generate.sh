@@ -6,4 +6,4 @@ S=${2:-0.5}
 CKPT=${3:-}
 ARGS=(--model "$MODEL" --sparsity "$S" --max-new-tokens 200 --num-samples 5)
 if [[ -n "$CKPT" ]]; then ARGS+=(--checkpoint "$CKPT"); else ARGS+=(--random-init); fi
-python -m teal_tpu.cli generate "${ARGS[@]}"
+python -m teal_jax.cli generate "${ARGS[@]}"

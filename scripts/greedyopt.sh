@@ -7,4 +7,4 @@ TEAL=${2:?}
 CKPT=${3:-}
 ARGS=(--model "$MODEL" --teal-path "$TEAL" --base-step-size 0.025 --target-sparsity 0.9)
 if [[ -n "$CKPT" ]]; then ARGS+=(--checkpoint "$CKPT"); else ARGS+=(--random-init); fi
-python -m teal_tpu.cli greedyopt "${ARGS[@]}"
+python -m teal_jax.cli greedyopt "${ARGS[@]}"

@@ -7,4 +7,4 @@ S=${3:?}
 CKPT=${4:-}
 ARGS=(--model "$MODEL" --hist-path "$HIST" --sparsity "$S")
 if [[ -n "$CKPT" ]]; then ARGS+=(--checkpoint "$CKPT"); else ARGS+=(--random-init); fi
-python -m teal_tpu.cli ppl "${ARGS[@]}"
+python -m teal_jax.cli ppl "${ARGS[@]}"

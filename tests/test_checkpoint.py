@@ -8,10 +8,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from teal_tpu.config import get_model_config
-from teal_tpu.models import llama
-from teal_tpu.models.llama import KVCache
-from teal_tpu.utils.checkpoint import (
+from teal_jax.config import get_model_config
+from teal_jax.models import llama
+from teal_jax.models.llama import KVCache
+from teal_jax.utils.checkpoint import (
     load_hf_checkpoint,
     load_params,
     save_params,
@@ -102,7 +102,7 @@ def test_loaded_model_runs(tmp_path, tiny_cfg):
     logits, _ = llama.forward(
         params, jnp.array([[1, 2, 3]], jnp.int32), cache, 0,
         llama.zero_thresholds(cfg), cfg=cfg,
-        sp=__import__("teal_tpu.config", fromlist=["SparsityConfig"]).SparsityConfig(),
+        sp=__import__("teal_jax.config", fromlist=["SparsityConfig"]).SparsityConfig(),
     )
     assert logits.shape == (1, 3, cfg.vocab_size)
     assert np.isfinite(np.asarray(logits)).all()
@@ -123,7 +123,7 @@ def test_native_roundtrip(tmp_path, tiny_cfg):
 def test_hf_load_mixtral_moe(tmp_path):
     """Mixtral key scheme: block_sparse_moe.gate + experts.{e}.w1|w2|w3."""
     from safetensors.numpy import save_file
-    from teal_tpu.config import SparsityConfig
+    from teal_jax.config import SparsityConfig
 
     cfg = get_model_config("tiny", n_experts=2, n_experts_per_tok=2)
     rng = np.random.default_rng(0)

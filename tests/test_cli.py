@@ -9,10 +9,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from teal_tpu import cli
-from teal_tpu.config import get_model_config
-from teal_tpu.models import llama
-from teal_tpu.utils import checkpoint
+from teal_jax import cli
+from teal_jax.config import get_model_config
+from teal_jax.models import llama
+from teal_jax.utils import checkpoint
 
 
 @pytest.fixture(scope="module")

@@ -14,10 +14,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from teal_tpu.config import SparsityConfig, get_model_config
-from teal_tpu.models import llama
-from teal_tpu.models.llama import KVCache
-from teal_tpu.parallel import (make_pp_mesh, make_sp_mesh, pp_forward,
+from teal_jax.config import SparsityConfig, get_model_config
+from teal_jax.models import llama
+from teal_jax.models.llama import KVCache
+from teal_jax.parallel import (make_pp_mesh, make_sp_mesh, pp_forward,
                                pp_shard_cache, pp_shard_params, shard_cache,
                                shard_params, sp_prefill)
 

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 from scipy import stats
 
-from teal_tpu.ops.distribution import (
+from teal_jax.ops.distribution import (
     Distribution,
     build_histogram,
     accumulate_counts,

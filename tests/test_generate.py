@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from teal_tpu.config import SparsityConfig, get_model_config
-from teal_tpu.engine.generate import Generator
-from teal_tpu.engine import sampling
-from teal_tpu.models import llama
+from teal_jax.config import SparsityConfig, get_model_config
+from teal_jax.engine.generate import Generator
+from teal_jax.engine import sampling
+from teal_jax.models import llama
 
 
 @pytest.fixture(scope="module")

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from teal_tpu.ops.gptq import (
+from teal_jax.ops.gptq import (
     gptq_quantize_int4,
     reconstruction_error,
     rtn_quantize_int4,
@@ -35,7 +35,7 @@ def test_gptq_packing_compatible(problem):
     """GPTQ output must run through the standard int4 dequant/matmul."""
     import jax.numpy as jnp
 
-    from teal_tpu.ops.quant import dequantize_int4, int4_matmul
+    from teal_jax.ops.quant import dequantize_int4, int4_matmul
 
     w, x = problem
     wq = gptq_quantize_int4(w, x, group=32)
@@ -62,10 +62,10 @@ def test_gptq_whole_model_runs_and_tracks_fp():
     import jax
     import jax.numpy as jnp
 
-    from teal_tpu.config import SparsityConfig, get_model_config
-    from teal_tpu.calibration.gptq_runner import gptq_quantize_model
-    from teal_tpu.models import llama
-    from teal_tpu.models.llama import KVCache
+    from teal_jax.config import SparsityConfig, get_model_config
+    from teal_jax.calibration.gptq_runner import gptq_quantize_model
+    from teal_jax.models import llama
+    from teal_jax.models.llama import KVCache
 
     cfg = get_model_config("tiny")
     params = llama.init_params(cfg, jax.random.PRNGKey(0), jnp.float32)
@@ -88,12 +88,11 @@ def test_gptq_whole_model_runs_and_tracks_fp():
 
 
 def test_gptq_pack_roundtrip_through_gather_kernel(problem):
-    """GPTQ int4 -> nibble-pack -> fused gather kernel: end-to-end
-    (quantize CLI int4-gptq artifacts drive the sparse decode path)."""
+    """GPTQ int4 -> nibble-pack -> packed int4 matmul: end-to-end
+    (quantize CLI int4-gptq artifacts drive the decode path)."""
     import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
 
-    from teal_tpu.ops import quant
+    from teal_jax.ops import quant
 
     w, x = problem  # w [K, N]
     K = w.shape[0]
@@ -106,9 +105,7 @@ def test_gptq_pack_roundtrip_through_gather_kernel(problem):
     np.testing.assert_allclose(wu, wd, rtol=1e-5, atol=1e-5)
 
     xv = jnp.asarray(x[:1], jnp.float32)
-    with pltpu.force_tpu_interpret_mode():
-        y = quant.int4_block_sparse_matmul(xv, packed, block_size=64,
-                                           keep_frac=1.0)
+    y = quant.int4_packed_matmul(xv, packed)
     ref = np.asarray(xv) @ wd
     np.testing.assert_allclose(np.asarray(y), ref, rtol=1e-3, atol=1e-2)
 
@@ -121,9 +118,9 @@ def test_gptq_sequential_propagation_semantics():
     import jax
     import jax.numpy as jnp
 
-    from teal_tpu.config import get_model_config
-    from teal_tpu.calibration.gptq_runner import gptq_quantize_model
-    from teal_tpu.models import llama
+    from teal_jax.config import get_model_config
+    from teal_jax.calibration.gptq_runner import gptq_quantize_model
+    from teal_jax.models import llama
 
     cfg = get_model_config("tiny")
     params = llama.init_params(cfg, jax.random.PRNGKey(2), jnp.float32)
@@ -150,10 +147,10 @@ def test_gptq_intra_block_subsequencing():
     import jax
     import jax.numpy as jnp
 
-    from teal_tpu.config import SparsityConfig, get_model_config
-    from teal_tpu.calibration.gptq_runner import gptq_quantize_model
-    from teal_tpu.models import llama
-    from teal_tpu.models.llama import KVCache
+    from teal_jax.config import SparsityConfig, get_model_config
+    from teal_jax.calibration.gptq_runner import gptq_quantize_model
+    from teal_jax.models import llama
+    from teal_jax.models.llama import KVCache
 
     cfg = get_model_config("tiny")
     params = llama.init_params(cfg, jax.random.PRNGKey(3), jnp.float32)

@@ -8,10 +8,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from teal_tpu.config import get_model_config
-from teal_tpu.eval.harness import ScoreModel
-from teal_tpu.models import llama
-from teal_tpu.utils.profiling import trace, write_metrics
+from teal_jax.config import get_model_config
+from teal_jax.eval.harness import ScoreModel
+from teal_jax.models import llama
+from teal_jax.utils.profiling import trace, write_metrics
 
 
 @pytest.fixture(scope="module")
@@ -29,8 +29,8 @@ def test_loglikelihood_consistency(sm):
     assert total < 0
 
     # manual check
-    from teal_tpu.models.llama import KVCache
-    from teal_tpu.config import SparsityConfig
+    from teal_jax.models.llama import KVCache
+    from teal_jax.config import SparsityConfig
 
     ids = jnp.asarray([ctx + cont], jnp.int32)
     cache = KVCache.init(cfg, 1, 8, jnp.float32)
@@ -91,11 +91,11 @@ def test_is_greedy_argmax_semantics(sm):
 def test_lm_eval_shim_multiple_choice_end_to_end(sm):
     """A multiple-choice task runs through TealTPULM + the vendored
     evaluator (VERDICT missing #3: lm-eval actually running tasks)."""
-    from teal_tpu.eval.harness import make_lm_eval_model
-    from teal_tpu.eval.lm_eval_shim import (
+    from teal_jax.eval.harness import make_lm_eval_model
+    from teal_jax.eval.lm_eval_shim import (
         MultipleChoiceTask, simple_evaluate,
     )
-    from teal_tpu.utils.tokenizer import ByteTokenizer
+    from teal_jax.utils.tokenizer import ByteTokenizer
 
     cfg, params, model = sm
     tok = ByteTokenizer()
@@ -113,9 +113,9 @@ def test_lm_eval_shim_multiple_choice_end_to_end(sm):
 def test_lm_eval_shim_generate_until(sm):
     """generate_until produces text through the Generator (greedy) and
     honors stop strings."""
-    from teal_tpu.eval.harness import make_lm_eval_model
-    from teal_tpu.eval.lm_eval_shim import GenerateTask, simple_evaluate
-    from teal_tpu.utils.tokenizer import ByteTokenizer
+    from teal_jax.eval.harness import make_lm_eval_model
+    from teal_jax.eval.lm_eval_shim import GenerateTask, simple_evaluate
+    from teal_jax.utils.tokenizer import ByteTokenizer
 
     cfg, params, model = sm
     tok = ByteTokenizer()

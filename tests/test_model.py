@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from teal_tpu.config import SparsityConfig, get_model_config
-from teal_tpu.models import llama
-from teal_tpu.models.llama import KVCache
+from teal_jax.config import SparsityConfig, get_model_config
+from teal_jax.models import llama
+from teal_jax.models.llama import KVCache
 
 
 @pytest.fixture(scope="module")

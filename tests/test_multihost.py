@@ -7,7 +7,6 @@ boundary.
 
 Legs (VERDICT r4 #7 — one 2-process run each):
   gspmd     — GSPMD decode step, dp=2 x tp=4
-  kernel-tp — tp=8 Pallas kernel-path decode (psum crosses processes)
   pp        — pp=2 x tp=4 GPipe prefill (ppermute IS the process hop)
   serving   — continuous-batching engine on a tp=8 global mesh with
               chunked admission (SPMD host loop on both processes)
@@ -38,12 +37,6 @@ def _run_leg(leg: str):
 def test_two_process_decode_step():
     out = _run_leg("gspmd")
     assert out.count("multihost step ok=True") >= 1, out
-
-
-@pytest.mark.slow
-def test_two_process_kernel_tp_decode():
-    out = _run_leg("kernel-tp")
-    assert out.count("multihost kernel-tp ok=True") >= 1, out
 
 
 @pytest.mark.slow

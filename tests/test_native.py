@@ -5,8 +5,8 @@ import time
 import numpy as np
 import pytest
 
-from teal_tpu.native import get_lib
-from teal_tpu.ops.distribution import (
+from teal_jax.native import get_lib
+from teal_jax.ops.distribution import (
     Histogram,
     build_histogram,
     make_edges,

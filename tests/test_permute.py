@@ -5,16 +5,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from teal_tpu.config import SparsityConfig, get_model_config
-from teal_tpu.calibration.permute import (
+from teal_jax.config import SparsityConfig, get_model_config
+from teal_jax.calibration.permute import (
     apply_permutations,
     channel_stats,
     compute_permutations,
     sort_perm,
 )
-from teal_tpu.models import llama
-from teal_tpu.models.llama import KVCache
-from teal_tpu.ops.sparsify import sparsify_groups
+from teal_jax.models import llama
+from teal_jax.models.llama import KVCache
+from teal_jax.ops.sparsify import sparsify_groups
 
 
 @pytest.fixture(scope="module")
@@ -69,7 +69,7 @@ def test_permutation_clusters_hot_channels():
 
 
 def test_permuted_block_decode_runs(tiny):
-    """Permuted params drive the block kernel decode path (interpret)."""
+    """Permuted params drive the sparse GEMV decode path (interpret)."""
     cfg = get_model_config("tiny", dim=256, intermediate_size=512,
                           n_heads=4, n_kv_heads=2, vocab_size=128)
     params = llama.init_params(cfg, jax.random.PRNGKey(1), jnp.float32)
@@ -77,12 +77,12 @@ def test_permuted_block_decode_runs(tiny):
     perms = compute_permutations(params, cfg, tokens)
     pparams = apply_permutations(params, perms, cfg)
 
-    from jax.experimental.pallas import tpu as pltpu
+    from teal_jax.ops.sparse_gemv_gpu import interpret_mode
 
     sp = SparsityConfig(enabled=True, kernel="block", block_size=16,
                         block_keep_frac=0.5)
     cache = KVCache.init(cfg, 1, 8, jnp.float32)
-    with pltpu.force_tpu_interpret_mode():
+    with interpret_mode():
         lg, _ = llama.forward(pparams, jnp.array([[3]], jnp.int32), cache, 0,
                               llama.zero_thresholds(cfg), cfg=cfg, sp=sp)
     assert np.isfinite(np.asarray(lg)).all()
@@ -92,7 +92,7 @@ def test_coactivation_beats_magnitude_on_structured_data():
     """Per-token co-firing structure (latent gates) is invisible to
     magnitude sorting but captured by keep-decision-correlation
     clustering: dropped energy falls well below the magnitude perm's."""
-    from teal_tpu.calibration.permute import (
+    from teal_jax.calibration.permute import (
         coactivation_perm, group_dropped_energy)
 
     rng = np.random.default_rng(0)
@@ -117,7 +117,7 @@ def test_coactivation_beats_magnitude_on_structured_data():
 def test_coactivation_graceful_without_structure():
     """On structure-free activations the held-out selection in
     _calibrated_perm falls back to (approximately) magnitude quality."""
-    from teal_tpu.calibration.permute import (
+    from teal_jax.calibration.permute import (
         _calibrated_perm, group_dropped_energy)
 
     rng = np.random.default_rng(1)

@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from teal_tpu.config import SparsityConfig, get_model_config
-from teal_tpu.models import llama
-from teal_tpu.models.llama import KVCache
-from teal_tpu.parallel.pp import (make_pp_mesh, pp_forward, pp_shard_cache,
+from teal_jax.config import SparsityConfig, get_model_config
+from teal_jax.models import llama
+from teal_jax.models.llama import KVCache
+from teal_jax.parallel.pp import (make_pp_mesh, pp_forward, pp_shard_cache,
                                   pp_shard_params)
 
 pytestmark = pytest.mark.skipif(
@@ -91,7 +91,7 @@ def test_pp_quantized_lm_head(tiny):
     """Quantized checkpoints (dict lm_head) shard and run through pp:
     spec trees mirror the param subtree and the last stage uses the
     format-aware lm head."""
-    from teal_tpu.ops.quant import quantize_int8
+    from teal_jax.ops.quant import quantize_int8
 
     cfg, params = tiny
     q = quantize_int8(params["lm_head"])

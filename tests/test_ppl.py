@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from teal_tpu.config import SparsityConfig, get_model_config
-from teal_tpu.eval import eval_ppl
-from teal_tpu.models import llama
+from teal_jax.config import SparsityConfig, get_model_config
+from teal_jax.eval import eval_ppl
+from teal_jax.models import llama
 
 
 @pytest.fixture(scope="module")
@@ -37,7 +37,7 @@ def test_ppl_matches_manual_nll(tiny):
     ppl = eval_ppl(params, cfg, ids, context_size=48, window_size=16)
 
     # manual: windows [0:64] scoring last 16, plus [16:64],[32:64],[48:64]
-    from teal_tpu.models.llama import KVCache
+    from teal_jax.models.llama import KVCache
 
     def manual_window_nll(window, n_score):
         t = len(window)

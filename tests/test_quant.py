@@ -5,12 +5,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
-from teal_tpu.config import SparsityConfig, get_model_config
-from teal_tpu.models import llama
-from teal_tpu.models.llama import KVCache
-from teal_tpu.ops import quant
+from teal_jax.config import SparsityConfig, get_model_config
+from teal_jax.models import llama
+from teal_jax.models.llama import KVCache
+from teal_jax.ops import quant
 
 
 @pytest.fixture(scope="module")
@@ -55,21 +54,6 @@ def test_int8_values_use_full_range(w):
     wq = quant.quantize_int8(w)
     q = np.asarray(wq.q)
     assert q.max() == 127 or q.min() == -128 or np.abs(q).max() > 100
-
-
-def test_fused_int8_block_sparse_matmul(w):
-    """Fused dequant+gather kernel vs dequantize-then-reference-twin."""
-    from teal_tpu.ops import block_gemv
-
-    x = jax.random.normal(jax.random.PRNGKey(2), (1, 128), jnp.float32)
-    wq = quant.quantize_int8(w)
-    with pltpu.force_tpu_interpret_mode():
-        y = quant.int8_block_sparse_matmul(x, wq, block_size=16,
-                                           keep_frac=0.5)
-    wd = quant.dequantize_int8(wq, jnp.float32)
-    ref = block_gemv.block_sparse_matmul_reference(x, wd, None, 16, 0.5)
-    np.testing.assert_allclose(np.asarray(y), np.asarray(ref),
-                               rtol=2e-2, atol=2e-2)
 
 
 def test_quantized_model_forward_and_ppl():
@@ -134,8 +118,8 @@ def test_quantize_cli_roundtrip(tmp_path):
     """quantize -> native store -> generate loads it transparently
     (VERDICT missing #2: the reference's model_int8.pth workflow,
     quantize.py:528-605 + generate.py:230-242)."""
-    from teal_tpu import cli
-    from teal_tpu.utils import checkpoint
+    from teal_jax import cli
+    from teal_jax.utils import checkpoint
 
     cfg = get_model_config("tiny")
     params = llama.init_params(cfg, jax.random.PRNGKey(0), jnp.float32)

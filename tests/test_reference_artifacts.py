@@ -45,7 +45,7 @@ def _ref_icdf_torch(counts, centers, q):
     ("Mistral-7B", 3, "self_attn"),
 ])
 def test_icdf_matches_reference_on_shipped_histograms(model, layer, module):
-    from teal_tpu.ops.distribution import load_histograms, Distribution
+    from teal_jax.ops.distribution import load_histograms, Distribution
 
     path = os.path.join(REF, model, "histograms", f"layer-{layer}", module)
     if not os.path.isdir(path):
@@ -65,7 +65,7 @@ def test_icdf_matches_reference_on_shipped_histograms(model, layer, module):
 
 
 def test_shipped_histograms_have_expected_shape():
-    from teal_tpu.ops.distribution import load_histograms
+    from teal_jax.ops.distribution import load_histograms
 
     path = os.path.join(REF, "Llama-2-7B", "histograms", "layer-0", "mlp")
     hists = load_histograms(path)
@@ -75,10 +75,10 @@ def test_shipped_histograms_have_expected_shape():
 
 
 def test_greedy_lookup_reader_on_shipped_csvs():
-    from teal_tpu.config import get_model_config
-    from teal_tpu.calibration import get_layer_greedy_sparsities
-    from teal_tpu.calibration.greedyopt import proj_weights, effective_sparsity
-    from teal_tpu.config import PROJS
+    from teal_jax.config import get_model_config
+    from teal_jax.calibration import get_layer_greedy_sparsities
+    from teal_jax.calibration.greedyopt import proj_weights, effective_sparsity
+    from teal_jax.config import PROJS
 
     lookup = os.path.join(REF, "Llama-2-7B", "lookup")
     if not os.path.isdir(lookup):
@@ -99,8 +99,8 @@ def test_greedy_lookup_reader_on_shipped_csvs():
 def test_thresholds_from_shipped_artifacts_full_model():
     """End-to-end: uniform thresholds for all 32 layers of Llama-2-7B from
     the real shipped histograms."""
-    from teal_tpu.config import get_model_config
-    from teal_tpu.calibration import thresholds_for_uniform
+    from teal_jax.config import get_model_config
+    from teal_jax.calibration import thresholds_for_uniform
 
     hist_root = os.path.join(REF, "Llama-2-7B", "histograms")
     cfg = get_model_config("7B")
@@ -118,12 +118,12 @@ def test_group_threshold_iid_fallback_on_shipped_histograms():
     pipeline runs on the real Mistral-7B artifacts, and (b) the mapping
     is self-consistent: sampling iid from the elementwise histogram and
     grouping, the fraction of groups with max-|x| <= t is ~s."""
-    from teal_tpu.config import get_model_config
-    from teal_tpu.calibration.thresholds import (
+    from teal_jax.config import get_model_config
+    from teal_jax.calibration.thresholds import (
         capacity_fracs_for_greedy,
         group_thresholds_for_greedy,
     )
-    from teal_tpu.ops.distribution import Distribution, load_histograms
+    from teal_jax.ops.distribution import Distribution, load_histograms
 
     root = os.path.join(REF, "Mistral-7B")
     if not os.path.isdir(root):
@@ -158,8 +158,8 @@ def test_group_threshold_tail_extrapolation_gaussian_truth():
     threshold must reproduce the TRUE Gaussian group-drop rate, which
     the clamped empirical quantile alone cannot (it lands at ~0.99^128
     = 0.28)."""
-    from teal_tpu.calibration.thresholds import _abs_icdf_tail
-    from teal_tpu.ops.distribution import Distribution
+    from teal_jax.calibration.thresholds import _abs_icdf_tail
+    from teal_jax.ops.distribution import Distribution
 
     rng = np.random.default_rng(1)
     x = rng.normal(0.0, 1.7, size=2_000_000)

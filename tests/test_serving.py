@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from teal_tpu.config import get_model_config
-from teal_tpu.engine.generate import Generator
-from teal_tpu.engine.serving import ContinuousBatchingEngine
-from teal_tpu.models import llama
+from teal_jax.config import get_model_config
+from teal_jax.engine.generate import Generator
+from teal_jax.engine.serving import ContinuousBatchingEngine
+from teal_jax.models import llama
 
 
 @pytest.fixture(scope="module")
@@ -89,8 +89,8 @@ def test_eos_stops_early(tiny):
 
 def test_serving_with_sparsity(tiny):
     """Continuous batching under the sparse accuracy path."""
-    from teal_tpu.config import SparsityConfig
-    from teal_tpu.models import llama as _llama
+    from teal_jax.config import SparsityConfig
+    from teal_jax.models import llama as _llama
 
     cfg, params = tiny
     sp = SparsityConfig(enabled=True, apply_prefill=False)
@@ -112,9 +112,9 @@ def test_serving_on_tp_mesh_matches_unsharded():
     programs run on tp-sharded params + a head-sharded cache with
     GSPMD inserting the collectives; greedy outputs match the
     unsharded engine token-for-token."""
-    from teal_tpu.config import get_model_config
-    from teal_tpu.parallel import make_mesh
-    from teal_tpu.parallel import tp as tp_mod
+    from teal_jax.config import get_model_config
+    from teal_jax.parallel import make_mesh
+    from teal_jax.parallel import tp as tp_mod
 
     cfg = get_model_config("tiny", dim=256, intermediate_size=384,
                            n_heads=4, n_kv_heads=4, vocab_size=128)
@@ -138,11 +138,11 @@ def test_serving_on_tp_mesh_matches_unsharded():
 
 
 def test_serving_b_gt_8_two_launch():
-    """slots > 8: the decode step serves all slots in ONE [16, G]
-    two-sublane-tile token-kernel launch (llama.forward's 8 < b <= 16
-    path); requests still finish correctly."""
-    from jax.experimental.pallas import tpu as pltpu
-    from teal_tpu.config import SparsityConfig, get_model_config
+    """slots > 8: above the sparse GEMV's row limit the decode step
+    takes the group-rule twin (selection + dense matmul) for all slots;
+    requests still finish correctly."""
+    from teal_jax.ops.sparse_gemv_gpu import interpret_mode
+    from teal_jax.config import SparsityConfig, get_model_config
 
     cfg = get_model_config("tiny", dim=256, intermediate_size=384,
                            n_heads=2, n_kv_heads=2, vocab_size=128)
@@ -156,17 +156,17 @@ def test_serving_b_gt_8_two_launch():
     )
     for i in range(10):
         eng.submit([1 + i, 2, 3], 3)
-    with pltpu.force_tpu_interpret_mode():
+    with interpret_mode():
         finished = eng.run()
     assert len(finished) == 10
     assert all(len(r.out) == 3 for r in finished)
 
 
 def test_serving_with_block_kernel():
-    """Continuous batching drives the batched block-sparse decode path
-    (slots <= 8 => kernel batch rows)."""
-    from jax.experimental.pallas import tpu as pltpu
-    from teal_tpu.config import SparsityConfig, get_model_config
+    """Continuous batching drives the batched sparse GEMV decode path
+    (slots <= 8 => kernel batch rows, interpret mode)."""
+    from teal_jax.ops.sparse_gemv_gpu import interpret_mode
+    from teal_jax.config import SparsityConfig, get_model_config
 
     cfg = get_model_config("tiny", dim=256, intermediate_size=512,
                           n_heads=4, n_kv_heads=2, vocab_size=128)
@@ -179,7 +179,7 @@ def test_serving_with_block_kernel():
     )
     eng.submit([1, 2, 3], 4)
     eng.submit([5, 6], 4)
-    with pltpu.force_tpu_interpret_mode():
+    with interpret_mode():
         finished = eng.run()
     assert len(finished) == 2
     assert all(len(r.out) == 4 for r in finished)

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from teal_tpu.config import SparsityConfig
-from teal_tpu.ops.sparsify import apply_sparsity, sparsify
+from teal_jax.config import SparsityConfig
+from teal_jax.ops.sparsify import apply_sparsity, sparsify
 
 
 def test_sparsify_masks_below_and_at_threshold():
@@ -65,21 +65,21 @@ def test_disabled_is_identity():
 
 
 def test_group_sparsify_matches_kernel_selection():
-    """Group accuracy-twin rule == the block kernel's reference twin."""
+    """Group accuracy-twin rule == the group rule's index-set reference twin."""
     import jax
-    from teal_tpu.ops import block_gemv
-    from teal_tpu.ops.sparsify import sparsify_groups
+    from teal_jax.ops.sparsify import (block_sparse_matmul_reference,
+                                       sparsify_groups)
 
     x = jax.random.normal(jax.random.PRNGKey(0), (1, 256), jnp.float32)
     w = jnp.eye(256, dtype=jnp.float32)
     xs = sparsify_groups(x, 16, 0.5)
-    ref = block_gemv.block_sparse_matmul_reference(x, w, None, 16, 0.5)
+    ref = block_sparse_matmul_reference(x, w, None, 16, 0.5)
     np.testing.assert_allclose(np.asarray(xs), np.asarray(ref), atol=1e-6)
 
 
 def test_group_sparsify_keeps_exact_fraction():
     import jax
-    from teal_tpu.ops.sparsify import sparsify_groups
+    from teal_jax.ops.sparsify import sparsify_groups
 
     x = jax.random.normal(jax.random.PRNGKey(1), (3, 5, 256), jnp.float32)
     out = np.asarray(sparsify_groups(x, 16, 0.5))

@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from teal_tpu.config import get_model_config
-from teal_tpu.engine.speculative import speculative_generate
-from teal_tpu.engine.generate import Generator
-from teal_tpu.models import llama
+from teal_jax.config import get_model_config
+from teal_jax.engine.speculative import speculative_generate
+from teal_jax.engine.generate import Generator
+from teal_jax.models import llama
 
 
 @pytest.fixture(scope="module")
@@ -83,7 +83,7 @@ def test_self_speculative_lossless_greedy(tiny):
     verify must reproduce the dense model's greedy output exactly —
     sparsity as a lossless speedup, whatever the draft's quality."""
     cfg, params = tiny
-    from teal_tpu.config import SparsityConfig
+    from teal_jax.config import SparsityConfig
 
     prompt = np.array([3, 1, 4])
     gen = Generator(cfg, params, max_seq=64, temperature=0.0)
@@ -110,7 +110,7 @@ def test_shared_vs_separate_cache_both_lossless(tiny):
     greedy output exactly. The designs differ in the draft's history
     conditioning, so accepted counts may differ; the output may not."""
     cfg, params = tiny
-    from teal_tpu.config import SparsityConfig
+    from teal_jax.config import SparsityConfig
 
     prompt = np.array([2, 9, 4, 1])
     gen = Generator(cfg, params, max_seq=64, temperature=0.0)
@@ -142,59 +142,14 @@ def test_shared_cache_requires_shared_params(tiny):
         )
 
 
-def test_block_verify_matches_dense_forward():
-    """The kernel-verify forward (k+1 positions as token-kernel sublane
-    rows, one launch for the whole stack) must equal the XLA dense
-    forward: same logits, same cache — across MHA/GQA and positions
-    including pos 0 and mid-write-tile."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from teal_tpu.config import SparsityConfig
-
-    for nh, nkv in ((2, 2), (4, 2)):
-        cfg = get_model_config(
-            "tiny", n_layers=2, n_heads=nh, n_kv_heads=nkv,
-            dim=256 * (nh // 2), intermediate_size=384, vocab_size=128)
-        params = llama.init_params(cfg, jax.random.PRNGKey(1),
-                                   jnp.float32)
-        th = llama.zero_thresholds(cfg)
-        assert llama.can_block_verify(params, cfg, 5)
-        for p, s in ((0, 5), (7, 5), (16, 5), (0, 9), (5, 12)):
-            # s > 8 exercises the multi-chunk path (later chunks attend
-            # to earlier chunks' kv through the cache)
-            cache = llama.KVCache.init(cfg, 1, 48, jnp.float32)
-            cache = llama.KVCache(
-                k=jax.random.normal(jax.random.PRNGKey(p),
-                                    cache.k.shape, jnp.float32) * 0.1,
-                v=jax.random.normal(jax.random.PRNGKey(p + 1),
-                                    cache.v.shape, jnp.float32) * 0.1)
-            toks = jnp.asarray([[(3 * i + 1) % 127 for i in range(s)]],
-                               jnp.int32)
-            with pltpu.force_tpu_interpret_mode():
-                got, cg = llama.block_verify(params, toks, cache, p, th,
-                                             cfg=cfg)
-            ref, cr = llama.forward(params, toks, cache, p, th, cfg=cfg,
-                                    sp=SparsityConfig(enabled=False))
-            np.testing.assert_allclose(
-                np.asarray(got), np.asarray(ref), rtol=3e-4, atol=3e-4,
-                err_msg=f"H{nh}/{nkv} pos={p} s={s}")
-            # multi-chunk rows recompute kv in separate launches with
-            # different fp32 reduction orders -> ~1e-6 drift
-            np.testing.assert_allclose(np.asarray(cg.k), np.asarray(cr.k),
-                                       rtol=1e-4, atol=5e-6,
-                                       err_msg=f"H{nh}/{nkv} pos={p} s={s}")
-            np.testing.assert_allclose(np.asarray(cg.v), np.asarray(cr.v),
-                                       rtol=1e-4, atol=5e-6)
-
-
 @pytest.mark.slow
 def test_shared_cache_kernel_verify_lossless_greedy():
-    """Shared-cache self-speculation with the KERNEL verify (head_dim
-    128 config, block-sparse draft + block_verify, all in interpret
-    mode) reproduces dense greedy decoding exactly."""
-    from jax.experimental.pallas import tpu as pltpu
+    """Shared-cache self-speculation with a block-sparse draft through
+    the sparse GEMV (interpret mode) and the dense XLA verify reproduces
+    dense greedy decoding exactly."""
+    from teal_jax.ops.sparse_gemv_gpu import interpret_mode
 
-    from teal_tpu.config import SparsityConfig
+    from teal_jax.config import SparsityConfig
 
     cfg = get_model_config(
         "tiny", n_layers=2, n_heads=2, n_kv_heads=2,
@@ -208,7 +163,7 @@ def test_shared_cache_kernel_verify_lossless_greedy():
                               block_size=128, block_keep_frac=0.5,
                               block_thresholding=True)
     th = jnp.zeros((cfg.n_layers, 7), jnp.float32)
-    with pltpu.force_tpu_interpret_mode():
+    with interpret_mode():
         toks, stats = speculative_generate(
             params, params, cfg, cfg, prompt, 10,
             speculate_k=3, temperature=0.0, max_seq=64,
@@ -241,12 +196,13 @@ def test_device_loop_dynamic_n_target(tiny):
 
 def test_two_model_spec_kernel_verify():
     """Two-model speculation (independent tiny draft, head_dim != 128)
-    with the TARGET's verify routed through the kernel — the verify must
-    run on cache_t, not the draft cache (round-4 regression: the
-    kernel-verify call passed cache_d unconditionally)."""
-    from jax.experimental.pallas import tpu as pltpu
+    with the TARGET's verify through the XLA forward over k+1 positions
+    — the verify must run on cache_t, not the draft cache (an earlier
+    verify path passed cache_d unconditionally). The draft decodes
+    through the sparse GEMV (interpret mode)."""
+    from teal_jax.ops.sparse_gemv_gpu import interpret_mode
 
-    from teal_tpu.config import SparsityConfig
+    from teal_jax.config import SparsityConfig
 
     tgt = get_model_config("tiny", n_layers=2, n_heads=2, n_kv_heads=2,
                            dim=256, intermediate_size=384, vocab_size=128)
@@ -255,13 +211,13 @@ def test_two_model_spec_kernel_verify():
     assert dr.head_dim != 128 and tgt.head_dim == 128
     pt = llama.init_params(tgt, jax.random.PRNGKey(0), jnp.float32)
     pd = llama.init_params(dr, jax.random.PRNGKey(1), jnp.float32)
-    with pltpu.force_tpu_interpret_mode():
+    with interpret_mode():
         toks, st = speculative_generate(
             pt, pd, tgt, dr, [1, 2, 3], 8, speculate_k=3,
             temperature=1.0, max_seq=64, cache_dtype=jnp.float32,
             device_loop=True,
             target_sp=SparsityConfig(enabled=False),
-            draft_sp=SparsityConfig(enabled=False))
+            draft_sp=SparsityConfig(enabled=True, kernel="gather"))
     assert st["new_tokens"] >= 8
     assert np.all(toks >= 0) and np.all(toks < tgt.vocab_size)
 
@@ -269,7 +225,7 @@ def test_two_model_spec_kernel_verify():
 def test_speculative_with_sparse_target(tiny):
     """Speculative decoding composes with activation sparsity on the
     target model (masked-dense accuracy path)."""
-    from teal_tpu.config import SparsityConfig
+    from teal_jax.config import SparsityConfig
 
     cfg, params = tiny
     sp = SparsityConfig(enabled=True, apply_prefill=True)
@@ -293,7 +249,7 @@ def test_adaptive_k_lossless_greedy(tiny):
     the target exactly, so greedy output == plain greedy decode at any
     k_eff trajectory the controller takes."""
     cfg, params = tiny
-    from teal_tpu.config import SparsityConfig
+    from teal_jax.config import SparsityConfig
 
     prompt = np.array([3, 1, 4])
     gen = Generator(cfg, params, max_seq=64, temperature=0.0)
@@ -318,7 +274,7 @@ def test_adaptive_k_controller_converges(tiny):
     should run deep (k_eff near k), at near-zero acceptance it should
     collapse to the bare-verify regime (k_eff <= 1)."""
     cfg, params = tiny
-    from teal_tpu.config import SparsityConfig
+    from teal_jax.config import SparsityConfig
 
     draft_sp = SparsityConfig(enabled=True)
     th = jnp.full((cfg.n_layers, 7), 0.08, jnp.float32)
@@ -344,7 +300,7 @@ def test_forced_alpha_acceptance_rate(tiny):
     """The measurement harness must realize the forced acceptance rate
     (mean accepted/k over many rounds ~ alpha at fixed k)."""
     cfg, params = tiny
-    from teal_tpu.config import SparsityConfig
+    from teal_jax.config import SparsityConfig
 
     draft_sp = SparsityConfig(enabled=True)
     th = jnp.full((cfg.n_layers, 7), 0.08, jnp.float32)

@@ -2,12 +2,12 @@
 
 import numpy as np
 
-from teal_tpu.utils.tokenizer import ByteTokenizer, get_tokenizer
+from teal_jax.utils.tokenizer import ByteTokenizer, get_tokenizer
 
 
 def test_byte_tokenizer_roundtrip():
     t = ByteTokenizer()
-    s = "Hello, TPU! éè"
+    s = "Hello, GPU! éè"
     ids = t.encode(s)
     assert t.decode(ids) == s
     assert t.encode(s, bos=True)[0] == t.bos_id()

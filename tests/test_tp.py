@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from teal_tpu.config import SparsityConfig, get_model_config
-from teal_tpu.models import llama
-from teal_tpu.models.llama import KVCache
-from teal_tpu.parallel import make_mesh, shard_cache, shard_params
+from teal_jax.config import SparsityConfig, get_model_config
+from teal_jax.models import llama
+from teal_jax.models.llama import KVCache
+from teal_jax.parallel import make_mesh, shard_cache, shard_params
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 virtual devices"
